@@ -9,7 +9,7 @@ the TLS model and accumulates total pair probability; buildPairedEndTemplate
 and proper-pair flag; rescueShadow (:495) + ShadowAligner searches the
 TLS-implied window for the missing mate.
 
-TPU-native re-design:
+Device re-design:
 - the pair search is a dense [B, C, C] tensor op over the two ends'
   candidate lists (C = max_candidates) instead of a per-cluster nested
   loop — model id, template length, match mask, probability sums and the

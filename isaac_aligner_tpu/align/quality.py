@@ -114,8 +114,8 @@ def mapping_quality_f64(best_log_prob, others_prob_sum, rog_correction):
 
 # -- float32-safe scaled-exponential forms -----------------------------------
 # The reference computes all probability-mass sums in C++ double
-# (TemplateBuilder::updateMappingScore, TemplateBuilder.cpp:233-286); on
-# TPU the float64 path is slow, so the device kernels scale every mass by
+# (TemplateBuilder::updateMappingScore, TemplateBuilder.cpp:233-286); the
+# device pipeline runs in float32, so its kernels scale every mass by
 # exp(-m) with m the row-max log prob — the same trick the rescue kernel
 # has always used — which keeps the ratios exact in float32 where the raw
 # exponentials underflow (found by the paired f64 parity oracle: a

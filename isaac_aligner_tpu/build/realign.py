@@ -11,7 +11,7 @@ the mismatch count (applyChoice), preserve the original CIGAR in the OC
 tag, and patch mate position / template length on both ends
 (updatePairDetails).
 
-TPU-native framing: this is a bin-local host post-pass exactly like the
+Framing: this is a bin-local host post-pass exactly like the
 reference's (it runs in the Build phase, after the device alignment
 pipeline).  The mismatch counting for every (read, gap-choice) candidate
 is vectorized numpy over the genome/read code arrays rather than the

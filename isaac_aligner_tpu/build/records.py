@@ -1,6 +1,6 @@
 """Columnar packed fragment records + vectorized BAM serialization.
 
-The TPU-native replacement for the reference's packed fragment format
+The columnar replacement for the reference's packed fragment format
 (src/c++/include/io/Fragment.hh FragmentHeader/FragmentAccessor) and its
 BAM serializer (include/build/BamSerializer.hh:39-88,
 include/bam/Bam.hh:154 serializeAlignment): instead of one packed struct

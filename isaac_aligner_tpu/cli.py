@@ -478,6 +478,8 @@ def main(argv: list[str] | None = None) -> int:
     up.set_defaults(fn=lambda a: (_unpack(a), 0)[1])
 
     args = p.parse_args(argv)
+    from .utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     if args.verbosity is not None:
         import os
 

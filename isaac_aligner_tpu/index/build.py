@@ -3,12 +3,12 @@
 Reference analog: ReferenceSorter (src/c++/lib/reference/ReferenceSorter.cpp:77-260)
 and the on-disk ReferenceKmer record (src/c++/include/reference/ReferenceKmer.hh:36-60).
 
-TPU-first redesign decisions (NOT a translation):
+Device-first redesign decisions (NOT a translation):
 
 - The index is a flat, fully sorted array of (k-mer, position) records held in
-  device HBM as three int32 planes — `key_hi`, `key_lo` (bias-encoded so that
-  *signed* int32 comparison matches unsigned 2-bit lexicographic k-mer order;
-  TPUs have no fast unsigned compare) and `pos` (flat global genome position).
+  device memory as three int32 planes — `key_hi`, `key_lo` (bias-encoded so
+  that *signed* int32 comparison matches unsigned 2-bit lexicographic k-mer
+  order) and `pos` (flat global genome position).
   Seed lookup is a vectorized branchless binary search (ops/search.py), not the
   reference's disk-streamed merge-join.
 - Only FORWARD-strand genome k-mers are stored; reads contribute both forward

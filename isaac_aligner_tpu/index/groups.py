@@ -1,9 +1,9 @@
 """Contig-group index sets: one command for genomes beyond 2^31 bases.
 
 A single index shard addresses < 2^31 bases (int32 position planes, a
-deliberate TPU layout — index/build.py). The reference instead widens
+deliberate device layout — index/build.py). The reference instead widens
 positions to 40 bits inside a packed u64 (ReferencePosition.hh:55-180);
-on TPU that would force emulated 64-bit compares and >2^31-element
+on the device that would force 64-bit compares and >2^31-element
 gathers, so whole-genome scale is expressed as contig GROUPS: greedy,
 order-preserving partitions of the contig list, each built as an
 independent index and aligned against by parallel/multi_index.py with

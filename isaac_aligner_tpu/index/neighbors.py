@@ -161,8 +161,8 @@ def annotate_index(key_hi: np.ndarray, key_lo: np.ndarray, k: int,
     """Neighbor bits for SORTED (possibly duplicated) index key planes.
 
     Unbiases the int32 planes to uint32 words, deduplicates, annotates
-    unique k-mers (TPU when available — neighbors_tpu.find_neighbors_
-    device — else the vectorized host scan), and expands back to
+    unique k-mers (on the device — neighbors_tpu.find_neighbors_device —
+    unless annotate_unique_auto picks the vectorized host scan), and expands back to
     per-record bits.  64-mer indexes pass their two middle planes via
     `key_mids` (round-4 refused 64-mer annotation entirely)."""
     from .build import unbias_i32_to_u32
@@ -293,9 +293,9 @@ def annotate_index_chunked(key_hi, key_lo, k: int,
         bits = np.zeros(n_uniq, dtype=bool)
 
         if not big:
-            # device path when a TPU is available (neighbors_tpu: all 70
-            # permutations in one jitted sort+windowed-scan program);
-            # falls back to the per-permutation host scan
+            # device path unless annotate_unique_auto picks the host
+            # scan (neighbors_tpu: one jitted sort+windowed-scan program
+            # per permutation)
             from .neighbors_tpu import annotate_unique_auto
             u = np.asarray(uniq)
             if k == 32:

@@ -28,7 +28,7 @@ Coordinates are reported as the CASAVA/iSAAC integer convention
 round(10*value + 1000) used for read names and ZX/ZY tags.
 
 Everything is decoded with vectorized numpy over whole tiles — per-cycle
-byte planes land directly in the [clusters, cycles] uint8 arrays the TPU
+byte planes land directly in the [clusters, cycles] uint8 arrays the device
 pipeline consumes.
 """
 

@@ -2,7 +2,7 @@
 
 Reference analog: src/c++/include/io/FastqReader.hh and the FastqSeedSource
 tile synthesis (src/c++/include/workflow/alignWorkflow/FastqDataSource.hh).
-The TPU pipeline wants rectangular [batch, read_len] uint8 arrays; reads
+The device pipeline wants rectangular [batch, read_len] uint8 arrays; reads
 shorter than read_len are padded with N / quality 0 (padding bases never
 match and carry no probability mass), longer reads are an error for now.
 """

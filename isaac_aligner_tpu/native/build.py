@@ -1,12 +1,14 @@
 """Build-on-first-use for the native components (g++ -> .so, ctypes).
 
-The image bans pip/apt installs but ships g++; we compile the small C++
-sources into shared objects next to this file, cached by source mtime.
+The package ships C++ sources and needs only g++ at run time: the small
+sources compile into shared objects next to this file, cached by source mtime
+and rebuilt when a cached object fails to load.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 import subprocess
 from pathlib import Path
 
@@ -20,8 +22,21 @@ _LINK_FLAGS = {
 }
 
 
+def _compile(name: str, src: Path, so: Path) -> None:
+    """g++ the source into `so` (written aside, then renamed, so a
+    concurrent loader never maps a half-written file)."""
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    cmd = ["g++", "-O2", "-shared", "-fPIC", "-std=c++17",
+           str(src), "-o", str(tmp)] + _LINK_FLAGS.get(name, [])
+    subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+    os.replace(tmp, so)
+
+
 def load_library(name: str) -> ctypes.CDLL | None:
-    """Compile (if stale) and load lib<name>.so; None if build fails."""
+    """Compile (if stale) and load lib<name>.so; None if build fails.
+
+    A library that exists but does not load (built against another
+    host's C++ runtime, or truncated) is rebuilt from the source once."""
     if name in _CACHE:
         return _CACHE[name]
     src = _DIR / f"{name}.cpp"
@@ -29,10 +44,12 @@ def load_library(name: str) -> ctypes.CDLL | None:
     lib: ctypes.CDLL | None = None
     try:
         if not so.exists() or so.stat().st_mtime < src.stat().st_mtime:
-            cmd = ["g++", "-O2", "-shared", "-fPIC", "-std=c++17",
-                   str(src), "-o", str(so)] + _LINK_FLAGS.get(name, [])
-            subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-        lib = ctypes.CDLL(str(so))
+            _compile(name, src, so)
+        try:
+            lib = ctypes.CDLL(str(so))
+        except OSError:
+            _compile(name, src, so)
+            lib = ctypes.CDLL(str(so))
     except (OSError, subprocess.SubprocessError):
         lib = None
     _CACHE[name] = lib

@@ -1,9 +1,9 @@
 """On-device 2-bit sequence ops: seed packing, reverse complement.
 
 Reference analog: oligo/KmerGenerator.hpp + the per-cycle seed construction
-in SeedLoader (src/c++/lib/alignment/SeedLoader.cpp:160-231).  The TPU
+in SeedLoader (src/c++/lib/alignment/SeedLoader.cpp:160-231).  The device
 design packs whole read batches at once with unrolled shift-or folds over
-static seed offsets — pure VPU element-wise work that XLA fuses into one
+static seed offsets — pure element-wise work that XLA fuses into one
 pass over the read tensor.
 
 Keys are bias-encoded into int32 (xor 0x80000000) so SIGNED comparison

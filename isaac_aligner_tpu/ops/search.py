@@ -2,11 +2,11 @@
 
 This replaces the reference's disk-streamed sorted merge-join
 (ExactMaskMatcher, src/c++/lib/alignment/matchFinder/ExactMaskMatcher.cpp:83-210)
-with the TPU-native formulation: every query seed binary-searches the
-HBM-resident sorted index with a fixed number of gather steps
+with a data-parallel formulation: every query seed binary-searches the
+device-resident sorted index with a fixed number of gather steps
 (ceil(log2(N))+1 probes), fully data-parallel across all seeds of a batch.
 
-Composite keys are held as int32 planes (TPUs have no fast int64) and
+Composite keys are held as int32 planes (no int64 on the device) and
 compared lexicographically: two planes for 16/32-mers (hi, lo), four for
 the 64-mer LongKmerType index (hi, mid1, mid2, lo — reference
 include/oligo/Kmer.hh:32-38 uses __uint128).  The power-of-two stepping
@@ -117,7 +117,7 @@ def sorted_range_bucketed(key_hi, key_lo, q_hi, q_lo, n_real, bucket_starts,
                           key_mids=(), q_mids=()):
     """sorted_range accelerated by a first-level prefix-bucket table.
 
-    This is the TPU rebirth of the reference's maskWidth sharding
+    This is the device form of the reference's maskWidth sharding
     (oligo::Mask, src/c++/include/oligo/Mask.hh:36; 2^maskWidth sorted
     shard files): `bucket_starts` [2^width + 1] maps each key's top
     `width` bits to its record range, so the per-query binary search runs

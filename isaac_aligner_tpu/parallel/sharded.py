@@ -1,41 +1,39 @@
 """SPMD alignment over a (data, shard) device mesh.
 
-Design (SURVEY.md §5.8 "TPU-native equivalent"):
+Design (SURVEY.md §5.8):
 
 - `data` axis: read batches are split across devices (the reference's
   tile/cluster data parallelism, MatchSelector.cpp:279-291).
 - `shard` axis: the sorted (k-mer, position) index is RANGE-sharded into
   equal record counts, split at k-mer boundaries so one k-mer's hit run
   never straddles shards (the reference's mask-file sharding axis,
-  SortReference.mk:54-84, re-mapped from disk files onto HBM planes).
+  SortReference.mk:54-84, re-mapped from disk files onto device planes).
 - Each device binary-searches its local shard for ALL of its data-row's
   seeds; per-shard hit lists are concatenated with an all_gather over the
-  `shard` axis (rides ICI), then dedup + scoring + MAPQ run replicated
+  `shard` axis, then dedup + scoring + MAPQ run replicated
   on the shard axis.  Seed search cost is O(log(N/s)) per shard, and hit
   capacity per shard stays the full R so repeats clustered in one shard
   are not truncated.
 - The genome plane is replicated (small-genome regime); `GenomeShards`
-  position-shards the packed planes for the >HBM whole-genome regime
+  position-shards the packed planes for the whole-genome regime beyond
+  one device's memory
   (owner-masked scoring + psum combine).
 
-COMM-VOLUME MODEL (expected cost per batch; BASELINE's >=80% 1->4-host
-scaling target is untestable on this 1-chip environment, its arithmetic
-is not).  Per data-row batch of B reads with S index shards:
+COMMUNICATION per data-row batch of B reads with S index shards (sizes
+from the shapes; times not measured on the GPU):
 
 * hit all-gather (_gathered_find): each shard contributes its local hit
   lists (start, orient, valid, clean) of [B, H] with H = n_seeds x
   max_hits_per_seed (~80 for 2x100bp, 4 offsets x 2 orients x 10), i.e.
-  ~10 B/entry -> B x H x 10 ~ 26 MB gathered per 32k-row batch.  Over
-  ICI (v5e ~186 GB/s/link) that is ~0.15 ms/batch — about 5% of the
-  ~3 ms the batch spends in scoring, and it SHRINKS per shard as 1/S
-  while search work shrinks log-fast; DCN-crossing meshes should map
-  `shard` to ICI and `data` to DCN (data rows never communicate until
-  the Build-phase dedup).
+  ~10 B/entry -> B x H x 10 ~ 26 MB gathered per 32k-row batch.  Each
+  shard's share shrinks as 1/S while search work shrinks log-fast.  The
+  mesh is a plain (data, shard) reshape of the device list: every card
+  of a host reaches every other at the same rate.
 * scalar stats psum: O(10) scalars — noise.
 * collective dedup (Build phase): every record routes to its anchor's
   owner via all_to_all — one 40-byte key tuple per record each way
-  (~5 MB per 64k-record bin), again ICI-bounded, overlapped with host
-  bin IO by the Build pipeline.
+  (~5 MB per 64k-record bin), overlapped with host bin IO by the Build
+  pipeline.
 * genome-sharded mode adds NO extra comm in steady state: candidates
   are replicated after the hit gather; owner-masked psum of the score
   grids replaces a broadcast of genome planes (the psum payload is the

@@ -11,7 +11,7 @@ single-device path exactly (k-mer-aligned index shards make the gathered
 hit lists identical to the unsharded ones).
 
 Reference analog: the reference scales MatchSelector over threads on one
-box (MatchSelector.cpp:279-291); the TPU equivalent is SPMD over the
+box (MatchSelector.cpp:279-291); the device equivalent is SPMD over the
 device mesh (SURVEY.md §5.8), and this module is what `align --devices N`
 constructs (workflow/align.py) — round 2 left the SPMD path reachable
 only from the dryrun harness.

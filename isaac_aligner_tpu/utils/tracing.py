@@ -32,7 +32,7 @@ def log(msg: str, *, force: bool = False) -> None:
     """Timestamped stderr log line (ISAAC_THREAD_CERR analog)."""
     if _enabled or force:
         ts = time.strftime("%Y-%m-%d %H:%M:%S")
-        print(f"{ts}\t[isaac-tpu]\t{msg}", file=sys.stderr, flush=True)
+        print(f"{ts}\t[isaac]\t{msg}", file=sys.stderr, flush=True)
 
 
 def _rss_mb() -> float:

@@ -38,6 +38,17 @@ from ..io.fastq import ReadBatch, pad_batch, read_fastq
 STATES = ("Start", "TlsDone", "AlignDone", "ReportsDone", "BamDone")
 
 
+#: share of the device's memory that resident index planes may take; the
+#: rest holds the batch programs' buffers
+PLANE_BUDGET_SHARE = 0.8
+
+
+def device_plane_budget() -> float:
+    """Bytes of index planes that stay resident on the device at once."""
+    from ..utils.device import device_bytes
+    return PLANE_BUDGET_SHARE * device_bytes()
+
+
 def _coords_from_names(names: list[str]):
     from .stats_agg import coords_from_names
     return coords_from_names(names)
@@ -835,18 +846,17 @@ class AlignWorkflow:
         elif len(indexes) > 1:
             from ..parallel.multi_index import (MultiIndexAligner,
                                                 MultiIndexPairedAligner)
-            # beyond-HBM regime: when the summed group planes exceed the
-            # HBM budget, stream group-major (one group resident at a
-            # time, parallel/multi_index._group_major_many)
-            import os as _os
-            hbm_budget = float(_os.environ.get("ISAAC_TPU_HBM_GB", "12")) * 1e9
+            # beyond-device-memory regime: when the summed group planes
+            # exceed the device budget, stream group-major (one group
+            # resident at a time, parallel/multi_index._group_major_many)
+            budget = device_plane_budget()
             plane_bytes = sum(ix.num_records * 13 * 1.3 for ix in indexes)
-            gm = plane_bytes > hbm_budget
+            gm = plane_bytes > budget
             if gm:
                 from ..utils import tracing
                 tracing.log(
                     f"multi-index: {plane_bytes/1e9:.1f} GB of index "
-                    f"planes > {hbm_budget/1e9:.0f} GB HBM budget — "
+                    f"planes > {budget/1e9:.1f} GB device budget — "
                     f"group-major swapping (one group resident at a "
                     f"time)", force=True)
             if paired:

@@ -8,7 +8,7 @@ keeps a TemplateLengthStatistics per barcode
 (workflow/AlignWorkflow.hh:270).  Round 4 shared one reference, one
 adapter list and one TLS across samples; this driver closes that gap.
 
-TPU-first shape: the device pipeline is batched, and the learned TLS
+Device-first shape: the device pipeline is batched, and the learned TLS
 rides through the paired program as a TRACED pytree — so per-barcode
 models need per-barcode BATCHES, not per-row model plumbing.  The driver
 partitions the demultiplexed stream by sample, rebatches each sample's

@@ -1,4 +1,7 @@
-"""Profile the e2e FASTQ->BAM workflow on the real TPU to find host hotspots."""
+"""Profile the e2e FASTQ->BAM workflow on the GPU to find host hotspots.
+
+Run: python profile_e2e.py [--paired]
+"""
 import cProfile
 import pstats
 import sys
@@ -8,19 +11,18 @@ from pathlib import Path
 
 import numpy as np
 
-import jax
-jax.config.update("jax_compilation_cache_dir", "/tmp/isaac_jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
 sys.path.insert(0, str(Path(__file__).parent))
 from bench import make_genome, make_reads, READ_LEN, GENOME_LEN  # noqa: E402
 from isaac_aligner_tpu import dna  # noqa: E402
 from isaac_aligner_tpu.index.build import build_index  # noqa: E402
+from isaac_aligner_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+from isaac_aligner_tpu.utils.device import require_gpu  # noqa: E402
 from isaac_aligner_tpu.workflow.align import AlignWorkflow, WorkflowOptions  # noqa: E402
 
 
 def main():
-
+    enable_compile_cache()
+    require_gpu()
     N_READS = 131_072
     BATCH = 32_768
     PAIRED = "--paired" in sys.argv

@@ -1,9 +1,11 @@
-"""Group-major HBM swapping (one index group resident at a time) must
-produce byte-identical output to the all-resident multi-index path."""
+"""Group-major swapping (one index group resident on the device at a
+time) must produce byte-identical output to the all-resident multi-index
+path."""
 
 import numpy as np
 
 from isaac_aligner_tpu.io.bam import read_bam
+from isaac_aligner_tpu.workflow import align as align_mod
 from isaac_aligner_tpu.workflow.align import AlignWorkflow, WorkflowOptions
 
 
@@ -46,10 +48,35 @@ def test_group_major_byte_identical(tmp_path, monkeypatch):
         return (tmp_path / name / "sorted.bam").read_bytes()
 
     resident = run("out_resident")
-    monkeypatch.setenv("ISAAC_TPU_HBM_GB", "0.000001")   # force swapping
+    monkeypatch.setattr(align_mod, "device_plane_budget",
+                        lambda: 1.0)                  # force swapping
     swapped = run("out_swapped")
     assert resident == swapped
     recs = read_bam(tmp_path / "out_resident" / "sorted.bam")[2]
     aligned = [r for r in recs if not (r.flag & 4)]
     assert len(aligned) >= 380          # nearly all 400 records
     assert {r.rname for r in aligned} == {"c0", "c1", "c2"}
+
+
+def test_plane_budget_from_device_memory(monkeypatch):
+    """The resident-plane budget is a share of the device's bytes_limit,
+    and of host RAM for a device that reports no limit."""
+    import os
+
+    import jax
+
+    class Dev:
+        def __init__(self, stats):
+            self.stats = stats
+
+        def memory_stats(self):
+            return self.stats
+
+    monkeypatch.setattr(jax, "devices",
+                        lambda *a: [Dev({"bytes_limit": 10_000_000_000})])
+    assert align_mod.device_plane_budget() == (
+        align_mod.PLANE_BUDGET_SHARE * 10_000_000_000)
+    monkeypatch.setattr(jax, "devices", lambda *a: [Dev(None)])
+    ram = os.sysconf("SC_PHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+    assert align_mod.device_plane_budget() == (
+        align_mod.PLANE_BUDGET_SHARE * ram)

@@ -1,5 +1,5 @@
-"""Device (TPU/XLA) neighbor annotation vs the host oracle, including
-the 64-mer support the host path refused through round 4."""
+"""Device neighbor annotation vs the host oracle, including the 64-mer
+support the host path lacks."""
 
 import numpy as np
 import pytest
@@ -93,9 +93,9 @@ def test_64mer_index_annotation_and_mapq_gating():
 
 
 def test_partitioned_device_matches_host(monkeypatch):
-    """Above DEVICE_SORT_MAX the device program partitions by
-    first-prefix-block value; forced-small bound must stay bit-exact."""
-    monkeypatch.setattr(nt, "DEVICE_SORT_MAX", 500)
+    """Above the single-sort bound the device program partitions by
+    first-prefix-block value; a forced-small bound must stay bit-exact."""
+    monkeypatch.setattr(nt, "device_sort_max", lambda n_words: 500)
     rng = np.random.default_rng(53)
     km = _plant_neighbors_u64(rng, 4000, 32, 250)
     host = find_neighbors(km, k=32)
@@ -104,3 +104,43 @@ def test_partitioned_device_matches_host(monkeypatch):
     dev = nt.find_neighbors_device(planes, 32)
     assert np.array_equal(host, dev)
     assert host.sum() > 100
+    assert np.array_equal(dev, nt.find_neighbors_device(planes, 32,
+                                                        sort_max=1000))
+
+
+def test_auto_reraises_device_failure(monkeypatch):
+    """A failing device annotation raises; nothing falls back to the
+    host scan."""
+    from isaac_aligner_tpu.index import neighbors
+
+    def boom(*a, **kw):
+        raise RuntimeError("device fault")
+
+    def host_called(*a, **kw):
+        raise AssertionError("host fallback ran")
+
+    monkeypatch.setattr(nt, "find_neighbors_device", boom)
+    monkeypatch.setattr(neighbors, "find_neighbors", host_called)
+    km = _plant_neighbors_u64(np.random.default_rng(3), 200, 32, 10)
+    planes = ((km >> np.uint64(32)).astype(np.uint32),
+              (km & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+    with pytest.raises(RuntimeError, match="device fault"):
+        nt.annotate_unique_auto(planes, 32)
+
+
+def test_sort_bounds_follow_device_memory(monkeypatch):
+    """The single-sort and partitioned-input bounds scale with the
+    device's bytes_limit."""
+    class Dev:
+        def __init__(self, limit):
+            self.limit = limit
+
+        def memory_stats(self):
+            return {"bytes_limit": self.limit}
+
+    import jax
+    monkeypatch.setattr(jax, "devices", lambda *a: [Dev(72_000_000)])
+    assert nt.device_sort_max(2) == 1_000_000
+    assert nt.device_max_records(2) == 36_000_000 // 21
+    monkeypatch.setattr(jax, "devices", lambda *a: [Dev(144_000_000)])
+    assert nt.device_sort_max(2) == 2_000_000

@@ -1,4 +1,4 @@
-"""Banded Smith-Waterman kernel vs the numpy oracle and known CIGARs."""
+"""Banded Smith-Waterman vs the numpy oracle and known CIGARs."""
 
 import numpy as np
 import pytest
@@ -12,7 +12,7 @@ def _codes(s):
 
 
 def _align_one(query, db, scores=sw.BWA_SCORES):
-    """Helper: run kernel on one pair, return (score, cigar, first_db)."""
+    """Helper: run the DP on one pair, return (score, cigar, first_db)."""
     g, tb = sw.banded_sw(np.asarray([query]), np.asarray([db]), scores)
     g = np.asarray(g)[0]
     tb = np.asarray(tb)[0]
@@ -104,3 +104,58 @@ def test_eland_scoring_variant():
     score, cigar, _ = _align_one(read, db, scores=sw.ELAND_SCORES)
     assert cigar == [(40, "M")]
     assert score == 2.0 * 40
+
+
+def _polish_like_batch(rng, n, l):
+    """Pairs shaped like polish_gapped's: half are reads taken from their
+    window with an indel and substitutions, half random; codes include N."""
+    db = rng.integers(0, 4, (n, l + sw.BAND - 1)).astype(np.int32)
+    q = rng.integers(0, 5, (n, l)).astype(np.int32)
+    for i in range(n // 2):
+        off = int(rng.integers(0, 8))
+        cut = int(rng.integers(10, l - 10))
+        gap = int(rng.integers(1, 6))
+        src = np.concatenate([db[i, off : off + cut],
+                              db[i, off + cut + gap :]])
+        q[i] = np.resize(src, l)
+        subs = rng.random(l) < 0.05
+        q[i, subs] = (q[i, subs] + 1) % 4
+    db[db == 3] = np.where(rng.random((db == 3).sum()) < 0.02, 4, 3)
+    return q, db
+
+
+@pytest.mark.parametrize("n", [1, 300, 512])
+@pytest.mark.parametrize("scores", [sw.BWA_SCORES, sw.ELAND_SCORES],
+                         ids=["bwa", "eland"])
+@pytest.mark.parametrize("l", [100, 150])
+def test_banded_sw_exact_vs_batch_oracle(l, scores, n):
+    """The jitted DP equals the vectorized host oracle bit for bit on
+    final scores and packed traceback, at polish_gapped's shapes."""
+    q, db = _polish_like_batch(np.random.default_rng(l * 7 + n), n, l)
+    g, tb = sw.banded_sw_jit(q, db, scores)
+    g_ref, tb_ref = sw.banded_sw_numpy_batch(q, db, scores)
+    np.testing.assert_array_equal(np.asarray(g), g_ref)
+    np.testing.assert_array_equal(np.asarray(tb), tb_ref)
+
+
+def test_banded_sw_partial_pack_group():
+    """L not a multiple of TB_PACK: the tail rows pack into a last,
+    partly filled word."""
+    q, db = _polish_like_batch(np.random.default_rng(9), 64, 42)
+    g, tb = sw.banded_sw_jit(q, db)
+    g_ref, tb_ref = sw.banded_sw_numpy_batch(q, db)
+    assert np.asarray(tb).shape == (64, 9, sw.BAND)
+    np.testing.assert_array_equal(np.asarray(g), g_ref)
+    np.testing.assert_array_equal(np.asarray(tb), tb_ref)
+
+
+@pytest.mark.gpu
+def test_banded_sw_on_gpu_matches_oracle(gpu_device):
+    """Compiled for the card at polish_gapped's block, exact vs oracle."""
+    import jax
+    q, db = _polish_like_batch(np.random.default_rng(1), 512, 150)
+    g, tb = jax.device_get(sw.banded_sw_jit(
+        jax.device_put(q, gpu_device), jax.device_put(db, gpu_device)))
+    g_ref, tb_ref = sw.banded_sw_numpy_batch(q, db)
+    np.testing.assert_array_equal(g, g_ref)
+    np.testing.assert_array_equal(tb, tb_ref)

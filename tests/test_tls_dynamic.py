@@ -3,7 +3,7 @@
 Round-3 defect: TLS was a static jit argument, so every production run
 (which re-learns a slightly different model) recompiled the whole paired
 pipeline (~100 s measured).  The reference re-determines TLS every run at
-zero compile cost (lib/alignment/MatchSelector.cpp:188-256); the TPU
+zero compile cost (lib/alignment/MatchSelector.cpp:188-256); the device
 design matches it by passing the TLS fields as traced int32 scalars and
 quantizing the (shape-setting) rescue window to power-of-two buckets.
 """
